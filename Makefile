@@ -15,7 +15,7 @@ docs-check:
 docs:
 	python tools/gen_api_docs.py
 
-# ONE JSON line on the real TPU (the driver's headline metric)
+# ONE JSON line of the headline metric on the default device
 bench:
 	python bench.py
 

@@ -1,4 +1,4 @@
-"""auditory-tpu: a TPU-native (JAX/XLA/Pallas) auditory & speech
+"""auditory-tpu: a JAX/XLA auditory & speech
 pre-processing framework with the capabilities of ``emer/auditory``.
 
 Pipeline: WAV -> float signal -> overlapping windows -> DFT power spectrum ->

@@ -8,13 +8,13 @@ pipeline as constants:
   per-filter weight vectors (mel.InitFilters, mel/mel.go:77-117) and applies
   them as scalar dot products over bin ranges (FilterDft, mel/mel.go:120-153).
   Here the same weights are placed into one dense [n_filters, n_bins] matrix so
-  the filter bank application is a single MXU matmul. The floor-based
+  the filter bank application is a single matmul. The floor-based
   FreqToBin arithmetic and the 0/0 -> NaN quirk (adjacent mel points in one
   bin) are reproduced exactly.
 - :func:`dct1_matrix` -- the unnormalized DCT-I computed by gonum
   fourier.NewDCT (mel/mel.go:198-204), as a matmul.
 - :func:`dft_matrices` -- real/imag DFT basis for the matmul form of the power
-  spectrum (MXU-friendly alternative to an FFT; exact same math).
+  spectrum (GEMM-friendly alternative to an FFT; exact same math).
 - :func:`gabor_filters` -- rendered gabor bank incl. the pos/neg-separate
   renormalization (agabor.ToTensor, agabor/gabor.go:89-222).
 """

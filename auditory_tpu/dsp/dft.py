@@ -1,6 +1,6 @@
 """Batched DFT power spectrum (device side).
 
-TPU-native form of ``dft.Params.Filter``/``Power`` (reference dft/dft.go:42-85):
+Batched form of ``dft.Params.Filter``/``Power`` (reference dft/dft.go:42-85):
 
 - NO analysis window by default (the reference feeds the raw rectangular
   window into the FFT, dft/dft.go:42-59).
@@ -11,14 +11,13 @@ TPU-native form of ``dft.Params.Filter``/``Power`` (reference dft/dft.go:42-85):
   (dft/dft.go:73-83).
 
 Two spectrum methods:
-- 'matmul': windows @ cos/sin DFT basis -- two MXU matmuls; preferred on TPU
-  (high f32 precision, fuses with the mel matmul downstream).
-- 'fft': jnp.fft.rfft -- preferred on CPU/f64 parity runs.
+- 'matmul': windows @ cos/sin DFT basis as dense GEMMs (f32 at a pinned
+  precision, fuses with the mel matmul downstream); the f32 default.
+- 'fft': jnp.fft.rfft -- the float64 parity default.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import jax
@@ -46,7 +45,7 @@ __all__ = [
 ]
 
 
-# Every spectrum method that runs the DFT as MXU GEMMs on the uniform
+# Every spectrum method that runs the DFT as dense GEMMs on the uniform
 # window grid ('matmul' = auto-dispatch among them). ONE source of truth:
 # the pipeline's basis-construction gate, method-name mapping, and
 # uniform-path gate all consume this tuple — a new frontend added here is
@@ -57,8 +56,9 @@ UNIFORM_SPECTRUM_METHODS = (
 
 
 def _pad128(n: int) -> int:
-    """MXU tile padding: TPU GEMMs pad BOTH contraction and output dims to
-    the 128-wide tile (measured, BENCH_NOTES_r04.md roofline correction)."""
+    """``n`` rounded up to the 128-wide GEMM tile that the dispatch and
+    factored cost models charge for (both GEMM dims; not yet re-derived
+    for the GPU's tensor-core tiles)."""
     return -(-n // 128) * 128
 
 
@@ -75,7 +75,7 @@ def _frame_block_sizes(step: int, win: int) -> Tuple[int, ...]:
 def _frames_padded_contraction(step: int, win: int) -> int:
     """Total 128-padded contraction the frames frontend pays per window:
     one GEMM per step-aligned block (see :func:`_frame_block_sizes`), each
-    padded to the MXU tile. The windowed frontend pays _pad128(win) plus
+    padded to the GEMM tile. The windowed frontend pays _pad128(win) plus
     a windows-materialization HBM charge instead."""
     return sum(_pad128(b) for b in _frame_block_sizes(step, win))
 
@@ -83,120 +83,38 @@ def _frames_padded_contraction(step: int, win: int) -> int:
 def preferred_spectrum_frontend(
     step_samples: int, win_samples: int, precision: str = "highest"
 ) -> str:
-    """Measured dispatch rule (v4) for ``spectrum_method='matmul'`` (the
-    f32 default). Three frontends compete; which one wins is set by the
-    overlap factor J = win/step, then by stride alignment and window size:
+    """Dispatch rule for ``spectrum_method='matmul'`` (the f32 default).
+    Three XLA frontends compete -- ``conv`` (one strided convolution),
+    ``frames`` (J = ceil(win/step) block-shifted dense GEMMs) and
+    ``windowed`` (materialized windows, ONE dense GEMM) -- and the pick is
+    set by the overlap factor J = win/step, then by window size:
 
-    - ``frames`` (J block-shifted dense GEMMs): wins when step >= win —
-      framing degenerates to a reshape, zero redundant bytes — and, more
-      generally, whenever its 128-padded per-block contraction total does
-      not exceed pad128(win) (then it does the same padded MACs as the
-      windowed GEMM without the windows-materialization HBM write; v4 pin
-      1200x240 +11% paired). Loses badly at heavy overlap with SMALL
-      steps, where per-block tile padding multiplies its MACs (400x40:
-      10*pad(40)=1280 vs pad(400)=512, measured 2.5x slower).
-    - ``conv`` (ONE strided conv, implicit GEMM): wins for small aligned
-      windows at moderate overlap, and at heavy overlap up to win ~640.
-      Its lowering falls apart at odd strides (3-6x off the GEMM floor)
-      and its relative cost grows with kernel size.
-    - ``windowed`` (materialize windows, ONE dense GEMM): the heavy-overlap
-      large-window specialist when frames' step padding is wasteful
-      (800x160: 5*pad(160)=1280 vs pad(800)=896 — windowed ties conv,
-      frames +10.5% paired); its materialization write costs 10-20%
-      against an equal-padded-MAC frames formulation.
+    1. step >= win -> frames: framing degenerates to a reshape, zero
+       redundant bytes.
+    2. J >= 4 (heavy overlap): conv up to win 768 (512 at
+       ``precision='default'``); above it frames when its tile-padded
+       per-block contraction total does not exceed pad128(win)
+       (:func:`_frames_padded_contraction`), else windowed; always
+       windowed at ``precision='default'``.
+    3. moderate overlap (the reference's win = 2.5*step family) ->
+       windowed. On an NVIDIA H100 80GB HBM3 (700 W), B=512 x 3 s,
+       'highest', median of 5 (``chip_smoke.py`` phase 3): 400/160
+       windowed 1.78 ms, frames 2.46, conv 5.31; 1103/441 windowed 9.98,
+       frames 10.19, conv 21.55.
 
-    Exact-grade on-chip shoot-outs (ms/batch, B=512 x 3 s; round-3 family
-    table in BENCH_NOTES_r03.md, round-4 off-family grid in
-    BENCH_NOTES_r04.md):
-
-    =========  ====  =====  ======  ========  ==========
-    win x step J     conv   frames  windowed  winner
-    =========  ====  =====  ======  ========  ==========
-    200x240    0.83  2.47   2.37    2.38      frames
-    320x320    1     3.21   2.29    2.37      frames
-    640x640    1     5.62   4.88    4.85      frames (tie windowed)
-    400x160    2.5   3.9    4.1     4.7       conv   (r3/r4 family)
-    800x320    2.5   —      wins    —         frames (r3: conv +9%)
-    320x80     4     5.70   7.08    5.52      windowed~conv
-    640x160    4     14.74  16.88   17.11     conv
-    200x40     5     3.58   5.53    3.3-3.7   conv~windowed
-    400x80     5     7.69   9.81    7.35      windowed~conv
-    800x160    5     21.85  24.48   21.53     windowed~conv
-    1200x240   5     60.16  45.10   40.31     windowed [SEQUENTIAL
-                                              reading, reversed by the
-                                              v4 paired re-measure below]
-    400x40     10    13.40  33.50   13.07     windowed~conv
-    =========  ====  =====  ======  ========  ==========
-
-    v4 re-measured every near-tie row EPOCH-INTERLEAVED (``bench_pallas.py
-    --interleave``: every epoch times every variant once; epoch-paired
-    deltas cancel link weather — sequential one-invocation blocks resolve
-    ~2x deltas, not ~1.1x ones). Paired medians, 12-16 epochs each
-    (2026-08-20, all regime-ok):
-
-    =========  =====  =====  ======  ========  =================
-    win x step J      conv   frames  windowed  paired winner
-    =========  =====  =====  ======  ========  =================
-    400x160    2.5    4.64   4.99    4.73      conv (12-15/16)
-    320x80     4      6.6    +20%    6.79      tie conv~windowed
-    400x80     5      8.81   11.08   8.69      tie conv~windowed
-    640x160    4      16.48  18.49   18.52     conv (12/12)
-    800x160    5      23.27  25.73   23.11     tie conv~windowed
-    800x320    2.5    15.62  12.8-13.1  13.73  frames (12/12)
-    1103x441   2.5    —      19.17   23.15     frames (12/12)
-    1200x240   5      ~60    37.07   41.11     FRAMES (12/12; v3
-                                               said windowed — the
-                                               sequential reading
-                                               had it reversed)
-    =========  =====  =====  ======  ========  =================
-
-    Mechanism (explains every sign): frames pays sum(pad128(block)) of
-    contraction per window (``_frames_padded_contraction``); windowed pays
-    pad128(W) plus a windows-materialization HBM write (~2W words/window,
-    worth 10-20% measured — 44.1 kHz: frames wins by 20.7% at a padded-MAC
-    ratio of only 1.11). frames therefore wins whenever its padded
-    contraction total does not exceed windowed's (1200x240: 5*256 == 1280
-    == pad(1200)); windowed only wins when the step's tile-padding waste
-    is large (800x160: 5*256 = 1280 vs 896, ratio 1.43).
-
-    Rule terms, each pinned by >= 2 measured points (paired where cited):
-
-    1. step >= win -> frames (pins: 200x240, 320x320, 640x640).
-    2. J >= 4, win > threshold (768 exact / 512 at
-       ``precision='default'``, pins 640x160 exact conv +12.5% paired vs
-       default windowed 7.38 vs conv 8.37): at MAC-bound precision
-       grades, frames when frames_padded_contraction <= pad128(win)
-       (pin 1200x240 exact +11.1% paired over windowed 12/12), else
-       windowed (pin 800x160 tie-with-conv, frames +10.5%). At
-       ``precision='default'`` (1-pass bf16 operands) the contraction is
-       cheap and the path turns data-movement-bound, where frames' J-fold
-       frame re-read LOSES to windowed's one materialize+read: measured
-       paired at 1200x240 default, windowed 12.33 ms vs conv 21.46 vs
-       frames 26.68 (windowed over frames by 54%, 12/12) -- so 'default'
-       always dispatches windowed above its threshold. Below the
-       threshold -> conv (paired pins 640x160, 400x80, 320x80;
-       sequential 400x40, 200x40).
-    3. moderate overlap (the reference's win = 2.5*step family):
-       frames at odd strides (gcd(step,128) < 16; pins 44.1 kHz paired
-       +20.7% over windowed, 22.05 kHz) or win > 512 (paired pins
-       800x320 frames +18% over conv / +5.8% over windowed; 1200x480
-       +37% over conv), else conv (paired pin 400x160; 200x80).
+    Terms 1 and 2 have not yet been measured on a GPU; ROADMAP S4
+    re-derives them.
     """
     if step_samples >= win_samples:
         return "frames"
-    j = win_samples / step_samples
-    if j >= 4.0:
-        windowed_min = 512 if precision == "default" else 768
-        if win_samples <= windowed_min:
+    if win_samples / step_samples >= 4.0:
+        if win_samples <= (512 if precision == "default" else 768):
             return "conv"
-        if precision != "default":
-            frames_pad = _frames_padded_contraction(step_samples, win_samples)
-            if frames_pad <= _pad128(win_samples):
-                return "frames"
-        return "windowed"
-    if math.gcd(step_samples, 128) < 16:
-        return "frames"
-    return "frames" if win_samples > 512 else "conv"
+        if precision != "default" and _frames_padded_contraction(
+            step_samples, win_samples
+        ) <= _pad128(win_samples):
+            return "frames"
+    return "windowed"
 
 
 def power_spectrum_conv(
@@ -212,9 +130,8 @@ def power_spectrum_conv(
     The window gather (sndenv.go SndToWindow) + DFT matmul is algebraically a
     1-D cross-correlation of the signal with the DFT basis rows at stride
     ``step_samples``: re[b, k, i] = sum_n sig[b, i*step + offset0 + n] *
-    cos(2 pi n k / W). XLA lowers this conv to an implicit GEMM on the MXU
-    with no materialized [B, n_windows, W] tensor and no gather -- on TPU
-    this is ~10x faster than gather+matmul for the default geometry.
+    cos(2 pi n k / W). XLA lowers this conv to an implicit GEMM with no
+    materialized [B, n_windows, W] tensor and no gather.
 
     Negative window positions read zeros via explicit conv padding, exactly
     reproducing the reference's left zero-fill (sndenv.go:455-478).
@@ -249,12 +166,9 @@ def power_spectrum_conv(
         window_strides=(step_samples,),
         padding=[(pad_l, pad_r)],
         dimension_numbers=("NCH", "OIH", "NCH"),
-        # default 'highest' = exact f32: TPU's default conv precision rounds
-        # f32 operands to bf16 (~2.5e-3 rel error on the power spectrum,
-        # measured); the MXU 6-pass f32 decomposition costs only ~35% more
-        # here because this conv is data-movement-bound, not FLOP-bound.
-        # 'default' is the opt-in fast/reduced-precision mode
-        # (SndEnv(matmul_precision='default')).
+        # pinned: 'highest' (the default) = full f32; unpinned f32
+        # contractions may run in TF32 on a GPU. 'high'/'default' are the
+        # opt-in reduced-precision tiers (SndEnv(matmul_precision=...)).
         precision=precision,
         preferred_element_type=signals.dtype,
     )  # [B, 2K, n_out]
@@ -315,16 +229,10 @@ def power_spectrum_frames(
         re[i] = Σ_j frames[i+j] @ cos[j·step : (j+1)·step]
 
     and each j-term is ONE [B, n_windows, step] @ [step, 2K] GEMM whose M
-    dimension is the full window count — perfect MXU row tiling. The
-    strided-conv lowering of the same contraction (power_spectrum_conv)
-    measured 3× off its FLOP floor at 16 kHz and ~6× at 44.1 kHz (its
-    HIGH == HIGHEST there, i.e. lowering-bound, not pass-bound); this
-    formulation trades (J·step − W)/W extra FLOPs (+20% at both default
-    geometries) for dense GEMMs. Same zero-fill semantics for negative
-    window positions (sndenv.go:455-478); bit-equivalent to f32 roundoff
+    dimension is the full window count. Same zero-fill semantics for
+    negative window positions (sndenv.go:455-478); equal to f32 roundoff
     (the W-length dot splits into J partial sums, so rounding differs by
-    ~1 ulp like any HIGHEST-grade reassociation — see
-    tools/tpu_parity_check.py).
+    ~1 ulp like any HIGHEST-grade reassociation).
 
     Args/returns: identical to :func:`power_spectrum_conv`.
     """
@@ -371,16 +279,10 @@ def segment_spans(
     slice the segments (this function), flatten them into the batch axis,
     and run the uniform conv/frames/windowed GEMM frontends per segment.
 
-    MEASURED NEGATIVE RESULT (round 4, BENCH_NOTES_r04.md): that
-    restructuring is 1.3-2.1x SLOWER than the per-window gather at every
-    probed config (22.05 kHz exact: gather 11.95 ms vs conv 15.4 /
-    frames 15.9 / windowed 17.0; 16 kHz prev_smooth: 9.1 vs 18.7).
-    Large take-along window gathers lower near bandwidth on this
-    hardware, the dense DFT GEMM dominates either way, and the
-    per-segment restructuring only adds span+window materialization
-    passes (plus contraction padding for frames' 221->256 blocks). The
-    pipeline's 'auto' therefore keeps off-grid builds on the gather;
-    SndEnv(segment_frontend='per_segment') opts in for reproduction.
+    The restructuring adds span+window materialization passes, so the
+    pipeline's 'auto' keeps off-grid builds on the per-window gather;
+    SndEnv(segment_frontend='per_segment') opts in. Which of the two is
+    faster on a GPU has not been measured.
     """
     k = max(1, -(-span // stride_samples))
     frames = _step_frames(signals, stride_samples, offset0, n_segments, k)
@@ -400,15 +302,11 @@ def power_spectrum_windows(
 
     Windows materialize as J=ceil(W/step) concatenated shifted slices of
     the step-frame tensor (views of one reshape -- no gather), trimmed to
-    W; then [B*nW, W] @ [W, 2K] is a single well-tiled MXU GEMM with the
-    exact W-length contraction (power_spectrum_frames pads it to J*step:
-    +20% FLOPs at the default geometries, +(J*step-W)/W generally). The
-    price is 2W words/window of HBM traffic for the windows tensor --
-    ~14% of the GEMM's MAC-time at 44.1 kHz (tools/roofline.py constants)
-    -- so this is a measured-bet variant for large odd-stride windows,
-    not a dispatch default. It is also the isolated probe of the
-    windows-materialization cost that the factored frontend's
-    non-polyphase stage 1 pays (same construction).
+    W; then [B*nW, W] @ [W, 2K] is a single dense GEMM with the exact
+    W-length contraction. The price is 2W words/window of HBM traffic for
+    the windows tensor. The dispatch rule's pick at moderate overlap
+    (:func:`preferred_spectrum_frontend`); the factored frontend's
+    non-polyphase stage 1 uses the same construction.
 
     Same zero-fill semantics for negative/overrunning positions
     (sndenv.go:455-478); identical math to the other frontends to f32
@@ -453,18 +351,9 @@ def power_spectrum_sliced(
     chunk rows, and the slot outputs interleave back to window order with
     a stack + reshape.
 
-    MEASURED NEGATIVE RESULT (round 4, BENCH_NOTES_r04.md) — kept as an
-    opt-in probe, never auto-dispatched. The padded-contraction argument
-    that motivated it: the MXU pads GEMM contraction dims to its 128-row
-    tile, and sliced's pad(p·step) = pad(480) = 512 at 16 kHz equals the
-    conv floor's pad(W) exactly, with a pure-reshape operand (vs frames'
-    J·pad(step) = 768 and windowed's materialization traffic). On chip it
-    loses anyway: 16 kHz exact 7.25 ms vs conv 5.02 / frames 5.01 (same
-    invocation), default tier 4.78 vs conv 3.28 — the p separate
-    small-M GEMMs plus the stack/interleave epilogue cost more than the
-    conv lowering's 1.6–1.8× slack. Third confirmation of the round-4
-    lesson: formulations win here by removing data movement, not by
-    re-arranging GEMMs the MXU pads anyway.
+    An opt-in probe (``spectrum_method='sliced'``), never auto-dispatched:
+    it trades windowed's materialization traffic for p separate small-M
+    GEMMs plus a stack/interleave epilogue. Not yet timed on a GPU.
 
     When step ≥ W (p = 1) this degenerates to frames' single-reshape case.
     Same zero-fill semantics for negative/overrunning window positions
@@ -562,26 +451,20 @@ class FactoredDFTPlan:
         return factored_split_cost(self.win, self.step, self.n1, self.n2)
 
 
-# MAC-equivalents charged per f32 word of HBM traffic: v5e peak
-# ~16.5e12 exact-f32 MAC/s vs ~205e9 f32 words/s -- compute is ~80x
-# denser than data movement, so materialized intermediates must be
-# costed or the model picks FLOP-cheap/byte-heavy splits
+# MAC-equivalents charged per f32 word of HBM traffic, i.e. the ratio of
+# the f32 MAC rate to the f32 word bandwidth. Without the charge the model
+# picks FLOP-cheap/byte-heavy splits. 80 has not been re-derived for the
+# GPU (an H100 SXM at full f32 is ~40: 33.5e12 MAC/s over 0.84e12 words/s,
+# datasheet rates); ROADMAP S4 re-derives it
 _MACS_PER_WORD = 80
 
 
 def factored_split_cost(win: int, step: int, n1: int, n2: int) -> int:
-    """Split-RANKING cost model for a W = N1*N2 split: MXU-padded MAC
+    """Split-RANKING cost model for a W = N1*N2 split: tile-padded MAC
     count per window plus HBM-traffic charges. Both GEMM dimensions are
-    padded to the MXU's 128x128 tile -- output columns to the 128-lane
-    register width AND the contraction dim to 128 rows. The contraction
-    padding is the round-4 measured correction (BENCH_NOTES_r04.md): the
-    original lanes-only model picked 16 kHz 100x4 / 32 kHz 100x8 /
-    48 kHz 75x16, which each measured WORST or near-worst of their
-    split family on chip, because a stage GEMM contracting only
-    N2=4..16 samples runs the systolic array at N2/128 utilization.
-    With contraction padding the model ranks the measured-best and
-    measured-worst split correctly at all three probed geometries
-    (13 on-chip split points, /tmp/r04 split_* logs).
+    padded to a 128-wide tile (:func:`_pad128`), so a stage GEMM that
+    contracts only a few samples is charged as the under-filled GEMM it
+    is.
 
     Traffic charges: the non-polyphase mode's materialized
     [n_windows, W] windows tensor (write + read = 2W words/window), and
@@ -615,23 +498,18 @@ def factored_dft_plan(
     Reference workload being factored: the dense rectangular-window DFT
     of dft/dft.go:42-59.
 
-    **Measured round-4 verdict (BENCH_NOTES_r04.md): on TPU v5e every
-    factored variant is dominated.** The on-chip shoot-out measured all
-    13 probed splits 1.6-3.4x SLOWER than the dense frames/conv GEMMs at
-    every reference geometry (16/32/48/22.05/8 kHz), despite a 3-4.5x
-    raw-FLOP advantage: the MXU pads GEMM contraction dims to its
-    128-row tile, so stage GEMMs contracting N1 or N2 << 128 samples run
-    at tiny utilization, and the complex stage-1 intermediate pays two
-    extra HBM passes that the dense single-GEMM paths never make. Hence
-    the default gate compares :func:`factored_split_cost` (which models
-    both effects) against the same-convention dense cost and returns
-    None everywhere at reference-scale windows -- the auto-dispatch
-    backfill in pipeline/sndenv.py then stays on 'frames'.
+    Despite a 3-4.5x raw-FLOP advantage, stage GEMMs contracting N1 or
+    N2 << 128 samples under-fill their tiles and the complex stage-1
+    intermediate pays two extra HBM passes that the dense single-GEMM
+    paths never make. The default gate compares
+    :func:`factored_split_cost` (which models both effects) against the
+    same-convention dense cost and returns None everywhere at
+    reference-scale windows -- the auto-dispatch backfill in
+    pipeline/sndenv.py then stays on 'frames'. Not yet timed on a GPU.
 
     ``allow_dominated=True`` returns the best-ranked split anyway
-    (explicit ``spectrum_method='factored'`` opt-in, shoot-out benches,
-    parity tests): the ranking itself is measurement-validated --
-    best/worst split ordered correctly at all three probed geometries.
+    (explicit ``spectrum_method='factored'`` opt-in, benches, parity
+    tests).
 
     Splits with N2 | step get the gather-free polyphase stage 1; other
     composite splits (e.g. 22.05 kHz's 551 = 29*19 against step 221) pay
@@ -653,12 +531,10 @@ def factored_dft_plan(
     if not allow_dominated:
         k = w // 2 + 1
         dense = _frames_padded_contraction(step, w) * _pad128(2 * k)
-        # Measured safety margin: where probed on chip, the model
-        # underestimates the factored side by up to 2x (the stage-2
-        # batched einsum and the non-polyphase transpose passes are not
-        # individually costed), so only a >=2x modeled advantage counts
-        # as undominated. At every reference geometry this gate returns
-        # None -- matching the measured verdict.
+        # Safety margin: the model does not cost the stage-2 batched
+        # einsum and the non-polyphase transpose passes individually, so
+        # only a >=2x modeled advantage counts as undominated. At every
+        # reference geometry this gate returns None.
         if 2 * best[0] >= dense:
             return None
     return FactoredDFTPlan(w, step, w // best[1], best[1])
@@ -675,14 +551,10 @@ def power_spectrum_factored(
     """DFT power via a two-stage Cooley-Tukey factorization W = N1*N2 --
     exact math, same rectangular-window semantics as the dense frontends
     (dft/dft.go:42-59), ~W/(N1+N2) fewer raw MACs (e.g. 9x at
-    W=1200=120*10). **Measured round-4 verdict: dominated on TPU v5e**
-    -- every probed split ran 1.6-3.4x slower than the dense frames/conv
-    GEMMs at every reference geometry, because the MXU pads GEMM
-    contraction dims to 128 (stage factors << 128 waste the systolic
-    array) and the complex stage-1 intermediate costs two extra HBM
-    passes (see :func:`factored_dft_plan`, BENCH_NOTES_r04.md). Kept as
-    an explicit opt-in (``spectrum_method='factored'``) for reproduction
-    and for hardware where the trade-off differs; never auto-dispatched.
+    W=1200=120*10), but its stage GEMMs contract only N1 or N2 samples and
+    the complex stage-1 intermediate costs two extra HBM passes (see
+    :func:`factored_dft_plan`). An explicit opt-in
+    (``spectrum_method='factored'``); never auto-dispatched.
 
     Decompose n = N2*n1 + n2, k = k1 + N1*k2:
 
@@ -715,7 +587,7 @@ def power_spectrum_factored(
     Same zero-fill semantics for negative/overrunning window positions
     as the other frontends (sndenv.go:455-478); equals them to f32
     roundoff (one extra reassociation level, like any HIGHEST-grade
-    split -- see tools/tpu_parity_check.py).
+    split).
 
     Args/returns: identical to :func:`power_spectrum_conv`, with the
     basis replaced by the plan (which pins win = plan.win and requires

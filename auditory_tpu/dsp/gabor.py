@@ -1,12 +1,12 @@
 """Gabor feature extraction over the mel spectrogram (device side).
 
-TPU-native form of ``agabor.Convolve`` (reference agabor/gabor.go:225-315):
+Batched form of ``agabor.Convolve`` (reference agabor/gabor.go:225-315):
 
 - NaN inputs are replaced with 0.5 before filtering (gabor.go:279-281). The
   reference mel stage can legitimately emit NaN (see dsp/design.mel_design).
 - valid-mode strided 2-D cross-correlation of the filter bank with the
   [freq, time] mel segment, lowered to ``lax.conv_general_dilated`` so XLA
-  maps it onto the MXU as an implicit GEMM over the batch.
+  maps it onto an implicit GEMM over the batch.
 - half-rectified two-channel output: act = Gain * |sum| routed to the 'on'
   channel if sum >= 0 else 'off' (gabor.go:284-308).
 - output layouts: 4-D pooled [fIdx, tIdx, 2, filter] (gabor.go:301-308) and
@@ -88,13 +88,9 @@ def convolve(
     ``method`` picks the lowering: ``'conv'`` is the strided 2-D
     ``conv_general_dilated``; ``'gemm'`` extracts the f_count*t_count
     patches with static slices (no gather) and runs ONE
-    [N*positions, sy*sx] x [sy*sx, n_filters] matmul. Measured on chip
-    (tools/probe_gabor.py, B=512 x 30 segments, bit-exact equivalence):
-    conv 2.83/2.61 ms (highest/default) vs gemm 2.93/2.87 -- the conv
-    lowering is NOT the stage's cost; HIGHEST==DEFAULT shows it is
-    layout/data-movement-bound (the on/off-stacked output is ~3x the
-    input bytes by reference semantics), so 'conv' stays the default and
-    'gemm' is the probe position.
+    [N*positions, sy*sx] x [sy*sx, n_filters] matmul, bit-identical in
+    f64. 'conv' is the default; which lowering is faster on a GPU has not
+    been measured.
     """
     n_freq, n_time = mel_seg.shape[-2], mel_seg.shape[-1]
     if n_time < gset.size_x:
@@ -165,8 +161,8 @@ def convolve(
             window_strides=(gset.stride_y, gset.stride_x),
             padding="VALID",
             dimension_numbers=("NCHW", "OIHW", "NCHW"),
-            # default 'highest' = exact f32 (TPU default conv precision is
-            # bf16 operands); 'default' is the opt-in fast mode
+            # pinned: 'highest' (the default) = full f32; an unpinned f32
+            # conv may run in TF32 on a GPU. 'high'/'default' opt in to it
             precision=precision,
             preferred_element_type=x.dtype,
         )  # [B, nf, outY, outX]

@@ -1,8 +1,8 @@
 """Mel filterbank, MFCC cepstrum, energy, and delta features (device side).
 
-TPU-native form of the reference mel package + SndEnv post-processing:
+Batched form of the reference mel package + SndEnv post-processing:
 
-- :func:`apply_mel` -- mel.FilterDft (mel/mel.go:120-153) as one MXU matmul
+- :func:`apply_mel` -- mel.FilterDft (mel/mel.go:120-153) as one matmul
   against the dense triangle matrix from :mod:`.design`, followed by the
   +LogOff / ==0 -> LogMin / ln / optional renorm-clamp chain.
 - :func:`mfcc_dct` -- mel.CepstrumDct (mel/mel.go:192-212): unnormalized DCT-I
@@ -45,10 +45,10 @@ def apply_mel(
 ) -> jnp.ndarray:
     """power [..., n_bins] -> log-mel [..., n_filters].
 
-    Default precision='highest': TPU's default matmul precision rounds f32
-    operands to bf16 (~2.5e-3 relative error), which would silently break
-    the f32 device path's CPU-equivalence (see tools/tpu_parity_check.py).
-    'default' is the opt-in fast mode (SndEnv(matmul_precision='default')).
+    Default precision='highest' = full f32: an unpinned f32 matmul may run
+    in TF32 on a GPU (~3 decimal digits), which would silently break the
+    f32 device path's CPU-equivalence (``chip_smoke.py`` phases 1-2).
+    'high'/'default' opt in (SndEnv(matmul_precision=...)).
     """
     s = jnp.matmul(
         power, mel_weights.T, precision=precision,
@@ -67,7 +67,7 @@ def apply_mel(
 def mel_renorm(val: jnp.ndarray, fbank: FilterBank) -> jnp.ndarray:
     """The reference's renorm clamp (mel/mel.go:144-149): scale into
     [renorm_min, renorm_max] and clip to [0, 1]. One source of truth for
-    both the XLA and Pallas frontends."""
+    every spectrum frontend."""
     val = (val - fbank.renorm_min) * fbank.renorm_scale
     return jnp.clip(val, 0.0, 1.0)
 
@@ -132,8 +132,8 @@ def mfcc_deltas_reference(
     *batch, steps, ncoef = mfcc_seg.shape
     n_idx = jnp.arange(1, npn + 1)
 
-    # clamped shifts built from slices + edge repeats (gathers are slow on
-    # TPU; this is pure data movement XLA fuses)
+    # clamped shifts built from slices + edge repeats (no gather; pure data
+    # movement XLA fuses)
     def shift_prev(k):  # [..., s, c] -> [..., clamp(s-k), c]
         lead = jnp.repeat(mfcc_seg[..., :1, :], min(k, steps), axis=-2)
         return jnp.concatenate(
@@ -229,9 +229,9 @@ def mfcc_deltas(
     r = jnp.asarray(
         reach.reshape(steps * ncoef, steps * ncoef), dtype=mfcc_seg.dtype
     )
-    # precision='highest': TPU's DEFAULT matmul precision rounds f32 inputs
-    # to bf16, which would regress delta accuracy vs the exact-f32 cumsum
-    # formulation; the operator is 182x182, so full precision is free
+    # precision='highest': a reduced-precision (TF32) product would regress
+    # delta accuracy vs the exact-f32 cumsum formulation; the operator is
+    # 182x182, so full precision is free
     clean = jnp.where(nan_src, 0, flat)
     out = jnp.matmul(clean, m.T, precision="highest")
     poisoned = jnp.matmul(

@@ -1,6 +1,6 @@
 """WAV decode/encode and int->float normalization.
 
-TPU-native analog of the reference ``sound.Wave`` (sound/sound.go:32-141).
+Host-side analog of the reference ``sound.Wave`` (sound/sound.go:32-141).
 Decoding runs on the host (stdlib ``wave`` + numpy, no external deps); the
 normalized float signal is what gets shipped to the device.
 

@@ -50,8 +50,7 @@ def _noisy_xx1_table(gain: float, nvar: float, n: int = 512):
     construction leabra's nxx1 package uses for its table).
 
     NOT used on the hot path (the device evaluates the two-band Chebyshev
-    fit, :func:`_noisy_xx1_cheb` -- a table *gather* is pathologically slow
-    on TPU); retained as the ground truth the fit is validated against in
+    fit, :func:`_noisy_xx1_cheb`, instead of a table *gather*); retained as the ground truth the fit is validated against in
     tests/test_kwta.py."""
     lo, hi = -4.0 * nvar, max(16.0 / max(gain, 1e-6), 8.0 * nvar)
     xs = np.linspace(lo, hi, n)
@@ -71,9 +70,9 @@ def _noisy_xx1_cheb(gain: float, nvar: float, deg_a: int = 24, deg_b: int = 16):
     """Two-band Chebyshev fit of the gaussian-convolved XX1 over the
     transition range [lo, hi] (host-side, cached): band A [lo, 6*nvar]
     resolves the nvar-scale shoulder around 0, band B [6*nvar, hi] the
-    smooth XX1 rise. Replaces the device table *gather* -- pathologically
-    slow on TPU inside the settle scan (~18 ms/iter for ~1M lookups) --
-    with a pure elementwise Clenshaw evaluation on the VPU. Max fit error
+    smooth XX1 rise. Replaces a device table *gather* inside the settle
+    scan (~1M lookups per iteration) with a pure elementwise Clenshaw
+    evaluation. Max fit error
     vs the dense convolution: ~8e-5 at the default degrees (16, 10) --
     within the 1e-4 budget, two orders below the 0.02 sparsity tolerance --
     and ~7e-7 at the legacy (24, 16) (KWTAParams.xx1_fit_degrees; bounds

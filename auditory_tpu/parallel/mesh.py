@@ -1,7 +1,7 @@
 """Device mesh and sharding helpers.
 
 The reference is single-threaded, single-process (SURVEY.md section 5); the
-TPU-native scaling model is SPMD data parallelism over utterances: a 1-D
+scaling model here is SPMD data parallelism over utterances: a 1-D
 ``jax.sharding.Mesh`` with a ``data`` axis, batch arrays sharded on their
 leading axis via NamedSharding, XLA inserting any collectives (none are needed
 in the hot path -- the pipeline is pointwise per utterance; only metric

@@ -2,13 +2,13 @@
 -> gabor -> (neighbor inhibition) -> (kwta), for all segments of an utterance
 -- or a whole padded batch of utterances -- in one jitted tensor program.
 
-TPU-native replacement for the reference orchestrator ``sound.SndEnv``
+Batched replacement for the reference orchestrator ``sound.SndEnv``
 (sound/sndenv.go:73-497). Where the reference loops one window at a time
 (ProcessSegment -> ProcessStep, sndenv.go:342-452), this builds a single XLA
-graph over [batch, n_segments, segment_steps] windows: one gather (or the
-fused Pallas frame+DFT+mel kernel, see auditory_tpu/ops/framefft.py), two DFT
-matmuls, one mel matmul, one DCT matmul, one grouped conv -- everything fused
-by XLA and executed batched on the MXU.
+graph over [batch, n_segments, segment_steps] windows: one strided-conv or
+GEMM DFT frontend (or a window gather off the uniform grid), one mel
+matmul, one DCT matmul, one grouped conv -- fused by XLA and executed
+batched on the accelerator.
 
 Output arrays keep the reference's per-segment shapes with leading
 [batch, segment] axes, e.g. ``power_segment[b, seg]`` == the reference's
@@ -92,10 +92,6 @@ class SndEnv:
     ``process`` jit-compiles per distinct signal length; call
     :func:`dsp.frame.pad_signal` / :func:`pipeline.batch.bucket_length` to
     bucket lengths.
-
-    ``use_pallas``: None = auto (on for TPU float32 when the config allows),
-    True/False to force. The Pallas path fuses frame+DFT+power+log+mel into
-    one kernel (ops/framefft.py); it requires prev_smooth == 0.
     """
 
     # all selectable output fields
@@ -119,10 +115,6 @@ class SndEnv:
         sample_rate: int,
         dtype=jnp.float32,
         spectrum_method: Optional[str] = None,
-        use_pallas: Optional[bool] = None,
-        pallas_passes: int = 6,
-        pallas_block: Optional[int] = None,
-        pallas_mode: str = "grouped",
         outputs: Optional[Tuple[str, ...]] = None,
         channels: int = 1,
         feature_stats: bool = False,
@@ -145,28 +137,24 @@ class SndEnv:
         extraction rarely needs.
 
         ``matmul_precision``: contraction precision for the device pipeline.
-        'highest' (default) = exact f32 -- required for the TPU-vs-CPU f32
-        equivalence contract (tools/tpu_parity_check.py). 'default' = the
-        MXU's native bf16-operand dots: ~40% faster end-to-end on TPU but
-        ~2.5e-3 relative power error (O(1) log-domain deviation at quiet mel
-        bins); CPU results are unaffected by this knob. 'high' = the 3-pass
-        middle ground (~1.5e-5 rel). The MFCC delta operator always runs at
-        'highest' (its NaN-reachability formulation is precision-critical).
+        'highest' (default) = full f32 -- required for the GPU-vs-CPU f32
+        equivalence contract (``chip_smoke.py`` phase 1). On an H100,
+        'high' and 'default' both run f32 products in TF32 and grade alike
+        against the CPU f32 run (phase 2, 8 rows x 3 s): power 1.4e-4
+        relative to its peak, log-mel 6.8e-2 absolute at the quietest bins,
+        gabor 8.6e-4 relative to its peak, gabor_kwta 3.0e-2 absolute. CPU
+        results are unaffected by this knob. The MFCC delta operator always
+        runs at 'highest' (its NaN-reachability formulation is
+        precision-critical).
 
         ``segment_frontend``: how to structure the frontend when no shared
         global window grid exists (stride % step != 0, e.g. 22.05 kHz; or
-        prev_smooth > 0). 'auto' (default) = the per-window gather -- a
-        measured rule, not a fallback of last resort: the per-segment
-        GEMM restructuring ('per_segment': gather-free spans +
-        conv/frames/windowed per segment, dsp/dft.py::segment_spans) was
-        measured 1.3-2.1x SLOWER at every probed config (22.05 kHz exact:
-        gather 11.95 ms vs conv 15.4/frames 15.9/windowed 17.0; 16 kHz
-        prev_smooth exact: 9.1 vs 18.7; BENCH_NOTES_r04.md) -- on this
-        hardware large take-along window gathers lower near bandwidth, so
-        the dense DFT GEMM dominates either way and the per-segment
-        restructuring only adds materialization passes. 'per_segment'
-        opts in for reproduction/probing; 'gather' forces the gather even
-        on uniform grids (probe baseline)."""
+        prev_smooth > 0). 'auto' (default) = the per-window gather.
+        'per_segment' = gather-free segment spans + the conv/frames/
+        windowed GEMM frontends per segment (dsp/dft.py::segment_spans),
+        which adds span and window materialization passes; whether it
+        beats the gather on a GPU has not been measured. 'gather' forces
+        the gather even on uniform grids (a probe baseline)."""
         self.cfg = cfg
         self.sample_rate = sample_rate
         self.channels = int(channels)
@@ -204,42 +192,11 @@ class SndEnv:
             spectrum_method = "matmul" if self.dtype == jnp.float32 else "fft"
         self.spectrum_method = spectrum_method
 
-        pallas_ok = (
-            self.dtype == jnp.float32
-            and cfg.dft.prev_smooth == 0.0
-        )
-        if use_pallas is None:
-            # default OFF: the strided-conv frontend (power_spectrum_conv,
-            # exact f32 via precision=HIGHEST) is the production path. The
-            # fused kernel now reaches the same exact-f32 grade via manual
-            # bf16 limb emulation (pallas_passes=6, verified on chip), but
-            # the conv is FASTER at every matched grade -- the kernel's
-            # residue-grouped matmuls row-starve the MXU. See
-            # ops/framefft.py PRECISION/PERFORMANCE + BENCH_NOTES_r03.md.
-            use_pallas = False
-        elif use_pallas and not pallas_ok:
-            raise ValueError(
-                "use_pallas requires float32 and prev_smooth == 0"
-            )
         if (cfg.gbor_out_pools_x > 0) != (cfg.gbor_out_pools_y > 0):
             raise ValueError(
                 "GborOutPoolsX & GborOutPoolsY must both be == 0 or > 0 "
                 "(2D or 4D; sndenv.go:220-222)"
             )
-        self.use_pallas = bool(use_pallas)
-        from ..ops.framefft import PALLAS_MODES, _n_limbs
-
-        _n_limbs(pallas_passes)  # validate: 1, 3 or 6
-        self.pallas_passes = int(pallas_passes)
-        self.pallas_block = pallas_block
-        if pallas_mode not in PALLAS_MODES:
-            raise ValueError(
-                f"pallas_mode must be one of {PALLAS_MODES}, got "
-                f"{pallas_mode!r}"
-            )
-        self.pallas_mode = pallas_mode
-        self._pallas_interpret = jax.default_backend() != "tpu"
-
         # host-built constants
         self.mel_des = design.mel_design(
             cfg.mel.fbank, self.timing.win_samples, sample_rate
@@ -249,7 +206,7 @@ class SndEnv:
         self.analysis_win = design.analysis_window(
             cfg.dft.window_fn, self.timing.win_samples
         )
-        if spectrum_method in UNIFORM_SPECTRUM_METHODS or self.use_pallas:
+        if spectrum_method in UNIFORM_SPECTRUM_METHODS:
             cos_m, sin_m = design.dft_matrices(self.timing.win_samples)
             if self.analysis_win is not None:
                 # fold the analysis window into the DFT basis rows
@@ -269,9 +226,8 @@ class SndEnv:
                     "analysis window can't be factored across the two "
                     "Cooley-Tukey stages"
                 )
-            # explicit opt-in: run the best-ranked split even though the
-            # round-4 shoot-out measured factored dominated by the dense
-            # GEMMs at every reference geometry (factored_dft_plan doc)
+            # explicit opt-in: run the best-ranked split even where the
+            # cost model ranks it below the dense GEMMs (factored_dft_plan)
             self.factored_plan = factored_dft_plan(
                 self.timing.win_samples,
                 self.timing.step_samples,
@@ -402,76 +358,13 @@ class SndEnv:
         )
         return power, logp
 
-    def _frontend_pallas(self, signals, flat_starts_np):
-        """Fused Pallas frame+DFT+power+log+mel (ops/framefft.py) on the
-        uniform window grid. Returns power, logp [B, n_flat, n_bins],
-        mel [B, n_flat, n_mel]."""
-        from ..ops.framefft import fused_frame_power_mel, pad_basis
-
-        t = self.timing
-        from ..ops.framefft import _MASKLIKE
-
-        masked = self.pallas_mode in _MASKLIKE
-        key = f"pallas_basis_{self.pallas_mode}"
-        if key not in self._jit_cache:
-            if masked and self.analysis_win is not None:
-                # masked mode needs the PURE complex-exponential basis (the
-                # row tiling relies on win-periodicity); the analysis window
-                # moves into the kernel's per-slot mask instead of the
-                # pre-folded self.dft_basis rows
-                cos_m, sin_m = design.dft_matrices(t.win_samples)
-            else:
-                cos_m, sin_m = self.dft_basis
-            cos_p, sin_p, w_p = pad_basis(cos_m, sin_m, self.mel_des.weights)
-            self._jit_cache[key] = (
-                jnp.asarray(cos_p), jnp.asarray(sin_p), jnp.asarray(w_p)
-            )
-        cos_p, sin_p, w_p = self._jit_cache[key]
-
-        # gate the kernel's wide per-bin outputs on what the program
-        # actually consumes (XLA cannot DCE through the pallas_call
-        # boundary, so un-emitted outputs are pure HBM write savings):
-        # power additionally feeds the Energy chain, whose value reaches
-        # the energy output AND every MFCC field (coef0 <- Energy)
-        outs = self.outputs
-        energy_users = {
-            "energy", "mfcc_segment", "mfcc_deltas", "mfcc_delta_deltas"
-        }
-        emit_power = (
-            outs is None
-            or "power_segment" in outs
-            or bool(energy_users & set(outs))
-        )
-        emit_logp = outs is None or "log_power_segment" in outs
-
-        return fused_frame_power_mel(
-            signals.astype(jnp.float32),
-            t.step_samples,
-            int(flat_starts_np[0]),
-            int(flat_starts_np.shape[0]),
-            cos_p,
-            sin_p,
-            w_p,
-            win=t.win_samples,
-            n_bins=t.n_bins,
-            n_mel=self.cfg.mel.fbank.n_filters,
-            dft=self.cfg.dft,
-            fbank=self.cfg.mel.fbank,
-            interpret=self._pallas_interpret,
-            passes=self.pallas_passes,
-            block_windows=self.pallas_block,
-            mode=self.pallas_mode,
-            window=self.analysis_win if masked else None,
-            emit=(emit_power, emit_logp),
-        )
-
     def _uniform_power_fn(self, basis):
         """Resolve the uniform-grid spectrum method once per build and
         return ``fn(sig2d [N, S], offset0, n_windows) -> power
         [N, n_windows, bins]``.
 
-        'matmul' (the default) auto-selects by the measured dispatch rule
-        (preferred_spectrum_frontend, v4: conv / frames / windowed by
+        'matmul' (the default) auto-selects by the dispatch rule
+        (preferred_spectrum_frontend: conv / frames / windowed by
         overlap factor, stride alignment and window size); 'factored'
         backfills its plan, with prime/refused geometries falling back to
         frames rather than passing a None plan downstream.
@@ -494,8 +387,7 @@ class SndEnv:
                 precision=self.matmul_precision,
             )
         if method == "factored" and self.factored_plan is None:
-            # auto-dispatch route (a future measured rule may return
-            # 'factored')
+            # auto-dispatch route (a future rule may return 'factored')
             self.factored_plan = factored_dft_plan(
                 t.win_samples, t.step_samples
             )
@@ -554,23 +446,6 @@ class SndEnv:
         )
         n_mel = cfg.mel.fbank.n_filters
         steps = t.segment_steps
-        from ..ops.framefft import supported_geometry
-
-        use_pallas = (
-            self.use_pallas
-            and seg_cnt_static > 0
-            and map_idx_np is not None  # uniform window grid only
-            and supported_geometry(
-                t.step_samples, max_block=self.pallas_block or 64,
-                win=t.win_samples, interpret=self._pallas_interpret,
-                passes=self.pallas_passes, mode=self.pallas_mode,
-            )
-        )
-        # introspection: which frontend did this build actually take
-        # (use_pallas=True silently falls back to XLA when the geometry is
-        # unsupported at the configured block -- tests/tools check this)
-        self._pallas_active = use_pallas
-
         uniform_methods = UNIFORM_SPECTRUM_METHODS
         uniform_power = (
             self._uniform_power_fn(basis)
@@ -581,17 +456,13 @@ class SndEnv:
             else None
         )
 
-        # per-segment uniform grid (OPT-IN probe path, measured negative):
-        # when no shared global step grid exists (stride % step != 0, e.g.
-        # 22.05 kHz stride 2205 / step 221; or prev_smooth > 0), the
-        # windows within ONE segment are still uniformly strided -- verify
-        # the affine structure host-side (window_starts: s*stride + i*step
-        # + const). Restructuring the frontend as gather-free per-segment
-        # spans + the uniform GEMM frontends was measured 1.3-2.1x SLOWER
-        # than the per-window gather at every probed config (see
-        # __init__'s segment_frontend docstring + BENCH_NOTES_r04.md), so
-        # 'auto' routes off-grid builds to the gather; 'per_segment' opts
-        # in for reproduction.
+        # per-segment uniform grid (opt-in): when no shared global step
+        # grid exists (stride % step != 0, e.g. 22.05 kHz stride 2205 /
+        # step 221; or prev_smooth > 0), the windows within ONE segment
+        # are still uniformly strided -- verify the affine structure
+        # host-side (window_starts: s*stride + i*step + const). 'auto'
+        # routes off-grid builds to the gather (see __init__'s
+        # segment_frontend docstring).
         per_seg_affine = False
         if (
             self.segment_frontend == "per_segment"
@@ -608,11 +479,10 @@ class SndEnv:
                 * np.arange(t.segment_steps, dtype=np.int64)[None, :]
             )
             per_seg_affine = bool((model == starts_np).all())
-        # introspection for tests/tools: 'pallas' | 'flat' | 'per_segment'
-        # | 'gather' (which frontend structure this build runs)
+        # introspection for tests/tools: 'flat' | 'per_segment' | 'gather'
+        # (which frontend structure this build runs)
         self._frontend_structure = (
-            "pallas" if use_pallas
-            else "flat"
+            "flat"
             if map_idx_np is not None and uniform_power is not None
             else "per_segment"
             if per_seg_affine and uniform_power is not None
@@ -652,17 +522,7 @@ class SndEnv:
         def program(signals: jnp.ndarray, lengths: jnp.ndarray):
             signals = signals.astype(self.dtype)
             lengths = jnp.asarray(lengths)
-            if use_pallas:
-                # fused kernel on the flat window grid (builds its own
-                # padded f32 basis from mel_des; mel_w is the XLA path's)
-                power, logp, mel_vals = self._frontend_pallas(
-                    signals, flat_starts_np
-                )
-                if cfg.mel.fbank.renorm_effective:
-                    from ..dsp.mel import mel_renorm
-
-                    mel_vals = mel_renorm(mel_vals, cfg.mel.fbank)
-            elif map_idx is not None and uniform_power is not None:
+            if map_idx is not None and uniform_power is not None:
                 # uniform global window grid, no materialized windows and
                 # no gather: 'frames' = J shifted dense GEMMs over
                 # step-aligned frames (power_spectrum_frames); 'conv' =
@@ -670,7 +530,7 @@ class SndEnv:
                 # ONE dense GEMM over gather-free materialized windows;
                 # 'factored' = two-stage Cooley-Tukey GEMMs (composite
                 # windows only). 'matmul' (the default) auto-selects by
-                # the measured dispatch rule (_uniform_power_fn).
+                # the dispatch rule (_uniform_power_fn).
                 power = uniform_power(
                     signals,
                     int(flat_starts_np[0]),
@@ -731,16 +591,10 @@ class SndEnv:
             from ..dsp.dft import log_power as _log_power
 
             en_bins = steps if cfg.energy_mode in ("sndenv", "gaborview") else None
-            if power is None:
-                # pallas emit-gating dropped the power output: by the gating
-                # rule (_frontend_pallas) no requested output consumes the
-                # Energy chain, so skip it entirely
-                logp_narrow = None
-            elif cfg.dft.comp_log_pow:
-                en_src = power[..., :en_bins] if en_bins else power
+            en_src = power[..., :en_bins] if en_bins else power
+            if cfg.dft.comp_log_pow:
                 logp_narrow = _log_power(en_src, cfg.dft)
             else:
-                en_src = power[..., :en_bins] if en_bins else power
                 logp_narrow = jnp.zeros_like(en_src)
 
             need_power = self.outputs is None or "power_segment" in self.outputs
@@ -766,22 +620,14 @@ class SndEnv:
                 # row-gathers over the *small* spectra (wide power/log-power
                 # only when those tensors are requested)
                 mel_vals = mel_vals[:, map_idx]
-                if logp_narrow is not None:
-                    logp_narrow = logp_narrow[:, map_idx]
-                power = (
-                    power[:, map_idx]
-                    if (need_power and power is not None)
-                    else None
-                )
+                logp_narrow = logp_narrow[:, map_idx]
+                power = power[:, map_idx] if need_power else None
                 logp = (
                     logp[:, map_idx]
                     if (need_logp and logp is not None)
                     else None
                 )
             else:
-                # use_pallas requires the uniform grid, so map_idx is always
-                # set on that path
-                assert not use_pallas
                 if not need_power:
                     power = None
                 if not need_logp:
@@ -792,14 +638,11 @@ class SndEnv:
             if logp is not None:
                 logp = jnp.where(vmask, logp, 0)
             mel_vals = jnp.where(vmask, mel_vals, 0)
-            if logp_narrow is not None:
-                logp_narrow = jnp.where(vmask, logp_narrow, 0)
-                en = energy(logp_narrow, cfg.energy_mode)  # [B, seg, steps]
-            else:
-                en = None  # no requested output consumes Energy
+            logp_narrow = jnp.where(vmask, logp_narrow, 0)
+            en = energy(logp_narrow, cfg.energy_mode)  # [B, seg, steps]
 
             mfcc = deltas = ddeltas = None
-            if cfg.mel.mfcc and en is not None:
+            if cfg.mel.mfcc:
                 mfcc = mfcc_dct(mel_vals, dct_m, cfg.mel.n_coefs, precision=self.matmul_precision)
                 mfcc = jnp.where(vmask, mfcc, 0)
                 # coef0 <- Energy for ALL steps (sndenv.go:368-372; runs after

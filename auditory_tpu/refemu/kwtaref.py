@@ -5,7 +5,7 @@ The reference's ``ApplyGabor`` tail (sound/sndenv.go:303-323) calls
 (``emer/vision/kwta`` v1.1.15 + ``emer/leabra/fffb`` v1.1.48, imports at
 sndenv.go:19-20); no upstream source is available offline, so ``nn/kwta.py``
 is a behavioral port with no oracle. This module is the best offline
-substitute (VERDICT r2 next-round #3): a SECOND, independent derivation of
+substitute: a SECOND, independent derivation of
 the same published Leabra spec, sharing no code, no numerical method, and no
 evaluation strategy with the production path:
 

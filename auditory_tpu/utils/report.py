@@ -4,7 +4,7 @@ The reference's gaborview app is a *live* two-pane explorer: edit
 WParams/PParams/GParams, reprocess, and eyeball both result tab sets
 (gbv.go:243-258, 952-1207, 1209-1313). The headless equivalents
 (`compare_segments` + `utils.viz.render_compare`) cover the computation and
-the figures; this module closes the browsing gap (VERDICT r2 missing #2):
+the figures; this module closes the browsing gap:
 ONE self-contained HTML file per compare run -- A/B parameters side by side
 with differing rows highlighted, the per-tensor diff-statistics table, and
 every comparison figure base64-embedded -- so a user can open a single file

@@ -3,7 +3,7 @@
 //
 // The reference's data path (sound/sound.go: go-audio/wav FullPCMBuffer +
 // GetFloatAtIdx) is single-threaded Go; at corpus scale the host-side decode
-// becomes the bottleneck feeding the TPU. This library decodes batches of
+// becomes the bottleneck feeding the accelerator. This library decodes batches of
 // WAV files in parallel into a caller-provided [n_files, max_samples] float32
 // matrix, applying the reference's normalization (divide by 0x7F / 0x7FFF /
 // 0x7FFFFF / 0x7FFFFFFF per 8/16/24/32-bit, sound/sound.go:130-141) and the

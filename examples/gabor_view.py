@@ -22,13 +22,13 @@ from auditory_tpu.speech.table import SoundsTable, load_timit_sequence
 
 def main() -> None:
     argv = [a for a in sys.argv[1:] if a != "--cpu"]
-    if os.environ.get("AUDITORY_TPU_CPU") or "--cpu" in sys.argv[1:]:
+    if "--cpu" in sys.argv[1:]:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
     from auditory_tpu.utils.cache import enable_compilation_cache
 
-    enable_compilation_cache()  # repeat TPU runs skip the flaky compile
+    enable_compilation_cache()  # repeat runs skip recompilation
     root = argv[0] if len(argv) > 0 else "."
     want = argv[1] if len(argv) > 1 else None
 

@@ -47,7 +47,7 @@ def main() -> None:
 
     from auditory_tpu.utils.cache import enable_compilation_cache
 
-    enable_compilation_cache()  # repeat TPU runs skip the flaky compile
+    enable_compilation_cache()  # repeat runs skip recompilation
 
     from auditory_tpu.config import GaborSet, SndEnvConfig, default_gabor_specs
     from auditory_tpu.pipeline.online import MultiStreamOnline

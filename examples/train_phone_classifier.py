@@ -62,7 +62,7 @@ def main() -> None:
         "batched pipeline; 'device' = write a wav corpus and stream it "
         "through CorpusRunner.iter_device_features (features never leave "
         "the device -- no npz/host round trip); 'npz' = CorpusRunner.run + "
-        "FeatureDataset (the materialized route, pays the link)",
+        "FeatureDataset (the materialized route, pays the host round trip)",
     )
     args = ap.parse_args()
 

@@ -259,8 +259,8 @@ def test_feature_stats(tmp_path):
 
 def test_sharded_non_divisible_batch(env):
     """7 utterances on 8 devices: process() pads internally with inert
-    zero-length rows, outputs match the unsharded run and keep batch size 7
-    (VERDICT round-1 weakness 2)."""
+    zero-length rows, outputs match the unsharded run and keep batch size
+    7."""
     mesh = make_mesh()
     sigs, batch, lengths = make_batch(
         env, [0.25, 0.45, 0.15, 0.35, 0.2, 0.3, 0.4]

@@ -179,8 +179,7 @@ def test_gabor_gemm_matches_conv():
     """The static-patch GEMM lowering (convolve(method='gemm')) must be
     bit-identical to the conv lowering at f64 across geometries, including
     NaN inputs (the 0.5 substitution happens before either contraction) and
-    the 4-D out_pools clamping. Measured on chip bit-exact too
-    (tools/probe_gabor.py); 'conv' stays the default by measurement."""
+    the 4-D out_pools clamping; 'conv' stays the default."""
     import jax.numpy as jnp
     import numpy as np
     import pytest

@@ -187,22 +187,20 @@ def test_auto_frontend_44k_matches_conv_pipeline():
 
 
 def test_preferred_frontend_rate_grid():
-    """The measured dispatch rule over the common sample-rate grid (the
-    reference's win = 2.5*step family, all J < 4): frames at odd strides
-    (gcd(step,128) < 16) OR large windows (> 512 samples, crossover
-    measured between win 400 and 800), conv for small aligned windows.
-    Derived from the default 25 ms window / 10 ms step (sndenv.go:202);
-    on-chip shoot-out tables in BENCH_NOTES_r03.md / _r04.md."""
+    """The dispatch rule over the common sample-rate grid (the
+    reference's win = 2.5*step family, all J < 4): windowed, the fastest
+    frontend on an H100 at 400/160 and 1103/441 (chip_smoke.py phase 3).
+    Derived from the default 25 ms window / 10 ms step (sndenv.go:202)."""
     from auditory_tpu.config import SndEnvConfig
     from auditory_tpu.dsp.dft import preferred_spectrum_frontend
 
     expect = {
-        8000: ("conv", 80),       # gcd 16, win 200
-        16000: ("conv", 160),     # gcd 32, win 400
-        22050: ("frames", 221),   # round(220.5) odd: gcd 1
-        32000: ("frames", 320),   # gcd 64 but win 800: conv loses 9%
-        44100: ("frames", 441),   # gcd 1
-        48000: ("frames", 480),   # gcd 32 but win 1200: conv loses 37%
+        8000: ("windowed", 80),
+        16000: ("windowed", 160),   # measured
+        22050: ("windowed", 221),   # round(220.5)
+        32000: ("windowed", 320),
+        44100: ("windowed", 441),   # measured (win 1103)
+        48000: ("windowed", 480),
     }
     cfg = SndEnvConfig()
     for sr, (method, step) in expect.items():
@@ -215,51 +213,40 @@ def test_preferred_frontend_rate_grid():
 
 
 def test_preferred_frontend_off_family():
-    """Rule v4's off-family terms, each pinned by the round-4 on-chip grid
-    and the late-round epoch-PAIRED re-measurements (BENCH_NOTES_r04.md):
+    """The rule's off-family terms (not yet measured on a GPU):
     step >= win degenerates framing to a reshape (frames); heavy overlap
     (J = win/step >= 4) routes large windows to frames when its 128-padded
     per-block contraction total matches windowed's single pad128(win)
     contraction (it then does the same padded MACs without the
     windows-materialization HBM write), to the materialized-windows single
     GEMM otherwise, with the large-window threshold dropping 768 -> 512
-    under reduced precision (640x160: conv wins exact but windowed wins
-    bf16-operand)."""
+    at precision='default' (640x160: conv at 'highest', windowed at
+    'default')."""
     from auditory_tpu.dsp.dft import preferred_spectrum_frontend as pref
 
-    # term 1: step >= win -> frames (pins: 200x240, 320x320, 640x640)
+    # term 1: step >= win -> frames
     assert pref(240, 200) == "frames"
     assert pref(320, 320) == "frames"
     assert pref(640, 640) == "frames"
-    # term 2: J >= 4, win <= 768 -> conv (paired pins: 320x80, 640x160,
-    # 400x80; sequential 400x40)
+    # term 2: J >= 4, win <= 768 -> conv
     assert pref(80, 320) == "conv"
     assert pref(160, 640) == "conv"
     assert pref(40, 400) == "conv"
     # term 2: J >= 4, win > 768: frames at equal padded contraction
-    # (1200x240: 5*pad(240)=1280 == pad(1200), paired +11.1% over
-    # windowed 12/12 -- v3's windowed pick was a weather-reversed
-    # sequential reading); windowed when step padding is wasteful
-    # (800x160: 5*pad(160)=1280 > pad(800)=896, paired tie-with-conv,
-    # frames +10.5%)
+    # (1200x240: 5*pad(240)=1280 == pad(1200)); windowed when step
+    # padding is wasteful (800x160: 5*pad(160)=1280 > pad(800)=896)
     assert pref(240, 1200) == "frames"
     assert pref(160, 800) == "windowed"
-    # term 2 precision split: 640x160 exact -> conv (paired 12/12)
-    # but default-precision -> windowed (7.38 vs 8.37 ms); the
-    # equal-padding frames pick applies only at MAC-bound grades — at
-    # 'default' (1-pass bf16) the path is data-movement-bound and
-    # frames' J-fold re-read loses (1200x240 default paired: windowed
-    # 12.33 ms vs frames 26.68, 12/12)
+    # term 2 precision split: 640x160 -> conv at 'highest'/'high' but
+    # windowed at 'default'; the equal-padding frames pick applies only
+    # above 'default' 
     assert pref(160, 640, precision="default") == "windowed"
     assert pref(240, 1200, precision="default") == "windowed"
     assert pref(160, 640, precision="high") == "conv"
-    # term 3 unchanged: moderate overlap keeps the rate-grid behavior
-    # (200x100: gcd(100,128)=4 -> frames; measured a 1% tie there);
-    # paired re-confirmations: 400x160 conv best 12-15/16; 800x320
-    # frames +18% over conv, +5.8% over windowed; 1103x441 frames
-    # +20.7% over windowed
-    assert pref(100, 200) == "frames"
-    assert pref(160, 400) == "conv"
+    # term 3: moderate overlap -> windowed (H100 pins 400x160, 1103x441)
+    assert pref(100, 200) == "windowed"
+    assert pref(160, 400) == "windowed"
+    assert pref(441, 1103) == "windowed"
 
 
 def test_frame_block_sizes_invariants():
@@ -336,9 +323,9 @@ def test_factored_matches_gather_matmul(w, step, offset0):
 
 def test_factored_plan_selection():
     """Prime windows admit no split at all; every composite reference
-    geometry is refused BY DEFAULT (round-4 measured verdict: the MXU's
-    contraction-dim padding makes every split slower than the dense
-    GEMMs on chip — factored_dft_plan docstring); allow_dominated=True
+    geometry is refused BY DEFAULT (the tile-padded cost model ranks
+    every split behind the dense GEMMs — factored_dft_plan docstring);
+    allow_dominated=True
     still returns the best-ranked split for explicit opt-in runs."""
     from auditory_tpu.dsp.dft import factored_dft_plan
 
@@ -347,7 +334,7 @@ def test_factored_plan_selection():
     assert factored_dft_plan(16, 1) is None      # step too small
     assert factored_dft_plan(64, 64) is None     # tiny window
     # default gate: the contraction-padded cost model says the dense
-    # GEMM wins at every reference-scale geometry (measured, r04)
+    # GEMM wins at every reference-scale geometry
     assert factored_dft_plan(1102, 441) is None
     assert factored_dft_plan(551, 221) is None
     assert factored_dft_plan(1200, 480) is None
@@ -358,8 +345,7 @@ def test_factored_plan_selection():
     p22 = factored_dft_plan(551, 221, allow_dominated=True)
     assert p22 is not None and not p22.polyphase and p22.n1 % 2 == 1
     # 48 kHz: the contraction-padded model ranks 48x25 (non-polyphase)
-    # ahead of the old lanes-only pick 75x16 (polyphase) — matching the
-    # measured split order (split_48k: 48x25 31.6 ms vs 75x16 35.8 ms)
+    # ahead of 75x16 (polyphase)
     p48 = factored_dft_plan(1200, 480, allow_dominated=True)
     assert p48 is not None and p48.n1 * p48.n2 == 1200
     # prime windows stay None even when dominated splits are allowed

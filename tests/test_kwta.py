@@ -141,7 +141,7 @@ def test_kwta_return_inhibs():
 
 
 # ---------------------------------------------------------------------------
-# Quantitative contract (VERDICT round-1 weakness 3): the behavioral port has
+# Quantitative contract: the behavioral port has
 # no oracle, so pin the sparsity level, the settle convergence, and a frozen
 # activation snapshot. A ~20% sparsity regression must fail these.
 # ---------------------------------------------------------------------------
@@ -236,7 +236,7 @@ def test_xx1_cheb_matches_dense_convolution(degrees, atol, mono_tol):
 def test_onoff_fold_exact_guard():
     """The packed-transfer on/off fold must be disabled exactly when the
     noisy-XX1 shoulder can lift zero-drive units off zero
-    (VERDICT/code-review finding)."""
+    (a code-review finding)."""
     import dataclasses as dc
 
     from auditory_tpu.pipeline.batch import _onoff_fold_exact

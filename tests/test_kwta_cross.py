@@ -1,4 +1,4 @@
-"""Dual-derivation cross-check of the kWTA/FFFB stage (VERDICT r2 #3).
+"""Dual-derivation cross-check of the kWTA/FFFB stage.
 
 ``nn/kwta.py`` (production: f32, Chebyshev/Clenshaw XX1, fixed-iteration
 scan) is compared against ``refemu/kwtaref.py`` (independent: f64, lookup

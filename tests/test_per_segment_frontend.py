@@ -1,12 +1,11 @@
-"""The per-segment uniform frontend (OPT-IN probe path, measured negative).
+"""The per-segment uniform frontend (OPT-IN probe path).
 
 When stride % step != 0 (22.05 kHz: stride 2205, step 221 -- Go math.Round
 of 220.5, sndenv.go:205) or prev_smooth > 0, no shared global window grid
 exists. The per-segment path slices gather-free [B, seg, span] spans
 (dsp/dft.py::segment_spans) and runs the uniform GEMM frontends with
-segments flattened into the batch axis -- exact math, but measured
-1.3-2.1x SLOWER than the per-window gather at every probed config
-(BENCH_NOTES_r04.md), so 'auto' keeps off-grid builds on the gather and
+segments flattened into the batch axis -- exact math, but with extra
+materialization passes, so 'auto' keeps off-grid builds on the gather and
 ``segment_frontend='per_segment'`` opts in.
 
 These tests pin (a) the routing -- auto->gather off-grid, flat on uniform

@@ -232,7 +232,7 @@ def test_reference_wav_parity(ref_wavs):
 
 
 def test_float32_device_path_close():
-    """The f32 matmul path (what runs on TPU) must stay within loose but
+    """The f32 matmul path (what runs on the GPU) must stay within loose but
     meaningful tolerance of the f64 oracle."""
     cfg = default_cfg_2d()
     sig = tone(1000.0, 0.3, SR)

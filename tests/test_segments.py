@@ -289,8 +289,8 @@ def test_compare_segments_both_none_skipped():
 
 def test_cli_segment_compare_html_report(tmp_path):
     """--html writes ONE self-contained report embedding both runs: params
-    (differing row flagged), diff stats, and base64 figures (VERDICT r2
-    missing #2 -- the browsable half of gaborview's A/B explorer)."""
+    (differing row flagged), diff stats, and base64 figures (the browsable
+    half of gaborview's A/B explorer)."""
     pytest.importorskip("matplotlib")
     from auditory_tpu.cli import main
     from auditory_tpu.io.wav import float_to_wave, write_wav

@@ -181,8 +181,8 @@ def test_vowels_table_dispatch(tmp_path):
 
 
 def test_snd_from_idx_folded_member_pinned():
-    """Pin snd_from_idx's documented order behavior for folded indices
-    (VERDICT round-1 weakness 4): the *last table-order member* is returned.
+    """Pin snd_from_idx's documented order behavior for folded indices:
+    the *last table-order member* is returned.
     Any member is semantically valid (the Go reference's map iteration is
     nondeterministic), but our implementation is deterministic -- assert it
     so a silent change in the contract is caught."""

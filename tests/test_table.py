@@ -3,6 +3,8 @@
 import json
 import os
 
+import pytest
+
 from auditory_tpu.io.wav import float_to_wave, write_wav
 from auditory_tpu.speech.table import SoundsTable, idx_from_snd, load_timit_sequence
 from tests.conftest import tone
@@ -166,11 +168,43 @@ def test_missing_timing_fallback_gets_silence_offset(tmp_path):
     assert seq.units[0].a_start == 100.0
 
 
+@pytest.mark.parametrize("flags", [["--frontend", "fft"], ["--f64"]],
+                         ids=["fft", "f64"])
+def test_cli_process_keeps_platform(tmp_path, flags):
+    """`--frontend fft` and `--f64` run on the device JAX picks: with an
+    accelerator platform configured, neither is refused nor forced onto
+    the CPU (both run there only because this process's backend is)."""
+    import jax
+    import numpy as np
+
+    from auditory_tpu.cli import main
+    from auditory_tpu.io.wav import float_to_wave, write_wav
+    from tests.conftest import tone
+
+    sr = 16000
+    p = str(tmp_path / "t.wav")
+    write_wav(p, float_to_wave(tone(700.0, 0.2, sr), sr))
+    ref, out = str(tmp_path / "ref.npz"), str(tmp_path / "out.npz")
+    assert main(["process", p, "--out", ref, "--no-kwta"]) == 0
+    jax.devices()  # the backend is up before the platform list changes
+    before = jax.config.jax_platforms
+    jax.config.update("jax_platforms", "cuda,cpu")
+    try:
+        assert main(["process", p, "--out", out, "--no-kwta", *flags]) == 0
+        assert jax.config.jax_platforms == "cuda,cpu"
+    finally:
+        jax.config.update("jax_platforms", before)
+    a, b = np.load(ref)["power_segment"], np.load(out)["power_segment"]
+    assert b.dtype == (np.float64 if "--f64" in flags else np.float32)
+    scale = float(np.abs(a).max())
+    np.testing.assert_allclose(b / scale, a / scale, atol=1e-5)
+
+
 def test_cli_process_precision_tier(tmp_path):
     """`process --precision high` plumbs the matmul tier into SndEnv; on the
     CPU backend every tier lowers identically, so outputs must match the
-    default exactly (the knob's on-chip grades are measured by
-    tools/tpu_parity_check.py --precision)."""
+    default exactly (the knob's GPU grades are printed by chip_smoke.py
+    phase 2)."""
     import numpy as np
 
     from auditory_tpu.cli import main

@@ -31,7 +31,7 @@ def test_gabor_view_example(tmp_path):
     out = subprocess.run(
         [sys.executable, "examples/gabor_view.py", str(tmp_path), "sh"],
         capture_output=True, text=True, timeout=300, cwd=".",
-        env={**__import__("os").environ, "AUDITORY_TPU_CPU": "1"},
+        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
     )
     assert out.returncode == 0, out.stderr[-1500:]
     assert "[sh]" in out.stdout

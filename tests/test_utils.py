@@ -5,7 +5,7 @@ import os
 import jax
 import jax.numpy as jnp
 
-from auditory_tpu.utils.cache import enable_compilation_cache
+from auditory_tpu.utils.cache import cache_dir, enable_compilation_cache
 from auditory_tpu.utils.profiling import StepTimer, memory_stats, trace
 
 
@@ -25,12 +25,34 @@ def test_memory_stats_keys():
     assert len(stats) == jax.device_count()
 
 
-def test_compilation_cache(tmp_path):
-    d = enable_compilation_cache(str(tmp_path / "xla"))
+def test_compilation_cache(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, the cache goes there and the
+    code sets no directory of its own (JAX reads the variable itself)."""
+    d = str(tmp_path / "xla")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+    before = jax.config.jax_compilation_cache_dir
+    assert cache_dir() == d
+    assert enable_compilation_cache() == d
     assert os.path.isdir(d)
-    assert jax.config.jax_compilation_cache_dir == d
+    assert jax.config.jax_compilation_cache_dir == before
     f = jax.jit(lambda x: x * 3 + 1)
     assert float(f(jnp.asarray(2.0))) == 7.0
+
+
+def test_compilation_cache_default_in_checkout(monkeypatch):
+    """Unset, the cache lands in a fixed, git-ignored directory of the
+    checkout (never under $HOME)."""
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache_dir() == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert enable_compilation_cache() == cache_dir()
+        assert jax.config.jax_compilation_cache_dir == cache_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_pad_signal_multidim_pads_last_axis():

@@ -3,7 +3,7 @@ CorpusRunner (decode -> device -> npz), reporting warm RTF and a serialized
 per-stage breakdown (decode / device compute / device->host transfer / write)
 so the overlap win is measurable.
 
-Usage: tools/tpu_run.sh /tmp/bc.log tools/bench_corpus.py [--files 400] ...
+Usage: PYTHONPATH=. python tools/bench_corpus.py [--files 400] ...
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ def main():
                     "mel_fbank_segment,gabor_kwta). power_segment,"
                     "log_power_segment at 44.1 kHz is the byte-bound "
                     "transfer regime (tens of MB/batch): the f32/f16/int8 "
-                    "crossover measurement, VERDICT r3 #4")
+                    "crossover measurement")
     ap.add_argument("--runs", type=int, default=2,
                     help="end-to-end runs (first run warms the jit cache)")
     args = ap.parse_args()

@@ -1,7 +1,7 @@
 """Serving-latency benchmark: single-stream OnlineSndEnv per-segment latency
 and MultiStreamOnline aggregate throughput on the current backend.
 
-    tools/tpu_run.sh /tmp/online.log tools/bench_online.py
+    PYTHONPATH=. python tools/bench_online.py [--overload] [--capacity-table]
 
 Prints one JSON line per scenario.
 """
@@ -55,7 +55,7 @@ def main() -> None:
     ap.add_argument("--poll-k", type=str, default="1",
                     help="max_segments_per_poll for the overload scenario; "
                     "a comma list (e.g. 1,4) runs the K scenarios in "
-                    "interleaved epochs so link-weather drift hits every K "
+                    "interleaved epochs so drift over the run hits every K "
                     "equally and the comparison is fair")
     ap.add_argument("--pipeline-depth", type=str, default="1",
                     help="MultiStreamOnline pipeline_depth; a comma list "
@@ -65,9 +65,8 @@ def main() -> None:
     ap.add_argument("--capacity-table", action="store_true",
                     help="ONE epoch-interleaved invocation sweeping "
                     "{64,128,256,512} streams x {f32,f16,int8} x depth "
-                    "{1,2} (serving outputs) -- the round-5 capacity "
-                    "table artifact; every cell sees the same link "
-                    "weather, so cross-cell deltas are paired-fair")
+                    "{1,2} (serving outputs); every cell sees the same "
+                    "drift, so cross-cell deltas are paired-fair")
     ap.add_argument("--epochs", type=int, default=6,
                     help="capacity-table interleaved epochs")
     ap.add_argument("--cycles", type=int, default=4,
@@ -121,8 +120,8 @@ def main() -> None:
     td = jnp.int8 if args.int8 else jnp.float16 if args.f16 else None
     depths = [int(x) for x in str(args.pipeline_depth).split(",")]
     # one instance per depth, measured in INTERLEAVED epochs (same
-    # fairness design as the overload --poll-k comparison: link weather
-    # drifts minute-to-minute, so sequential depth runs would confound).
+    # fairness design as the overload --poll-k comparison: sequential
+    # depth runs would confound drift with depth).
     # Each epoch flushes its pipeline inside its own timed window — D>=2
     # pays its fill/drain at every epoch boundary (conservative) and
     # never gets free compute time while other depths hold the clock.
@@ -177,14 +176,9 @@ def main() -> None:
         # stride each) per stream per poll, so K=1 producers outrun poll()
         # 4x. Bounded 2 s buffers with drop_oldest keep per-poll cost flat;
         # the poll latency distribution under pressure is the serving
-        # p50/p99 (VERDICT r2 #6). --poll-k takes a comma list (e.g. 1,4):
-        # the K scenarios run in INTERLEAVED epochs so link weather --
-        # which drifts minute-to-minute on this relay -- hits every K
+        # p50/p99. --poll-k takes a comma list (e.g. 1,4): the K
+        # scenarios run in INTERLEAVED epochs so drift hits every K
         # equally and the comparison is fair.
-        import jax
-
-        from auditory_tpu.utils.canary import d2h_canary, make_canary_buffer
-
         ks = [int(x) for x in str(args.poll_k).split(",")]
         scenarios = [(k, d) for k in ks for d in depths]
         runs = {}
@@ -208,17 +202,11 @@ def main() -> None:
             # phase only (the warmup cycles shed segments too and would
             # bias the ratio high)
             runs[(k, d)] = dict(
-                ms=ms2, lat=[], canary=[], n_seg=0,
+                ms=ms2, lat=[], n_seg=0,
                 dropped0=sum(
                     ms2.dropped_segments(s) for s in range(args.streams)
                 ),
             )
-        # link-health canary per poll cycle: a fixed tiny D2H copy timed
-        # right before each poll. If the poll-latency tail correlates with
-        # canary stalls, the tail is the relay's, not the poll path's
-        # (VERDICT r3 #5: attribute or fix the p99/p50 = 1.76x tail).
-        canary_buf = make_canary_buffer(jnp, jax.device_put)
-        d2h_canary(canary_buf)  # warm the copy path
         epochs = 4
         per_epoch = max(1, args.chunks // epochs)
         for _ in range(epochs):
@@ -230,17 +218,14 @@ def main() -> None:
                             s, (0.1 * rng.standard_normal(4 * chunk_n))
                             .astype(np.float32),
                         )
-                    r["canary"].append(d2h_canary(canary_buf))
                     t0 = time.perf_counter()
                     r["n_seg"] += sum(1 for _ in r["ms"].poll())
                     r["lat"].append(time.perf_counter() - t0)
         # flush in-flight pipelined calls (harvest only, no new dispatch:
         # draining the overload backlog here would distort the scenario)
-        # so D>=2 counts every dispatched segment; keep lat/canary paired
-        # for the attribution arrays
+        # so D>=2 counts every dispatched segment
         for r in runs.values():
             if r["ms"]._inflight:
-                r["canary"].append(d2h_canary(canary_buf))
                 t0 = time.perf_counter()
                 r["n_seg"] += len(r["ms"].flush_pipeline())
                 r["lat"].append(time.perf_counter() - t0)
@@ -250,21 +235,14 @@ def main() -> None:
 def _capacity_table(args) -> None:
     """The serving capacity table as ONE artifact: every (streams,
     transfer, depth) cell measured in interleaved epochs within this single
-    invocation, so link weather -- which swings sequential readings by tens
-    of percent on this relay (BENCH_NOTES_r04.md: the D=1 baseline moved
-    152->116x within an hour) -- hits every cell equally. Cross-cell
-    deltas here are epoch-paired and fair; the round-4 README table was
-    stitched from cross-day runs and its int8-vs-f16 @512 delta (4%) was
-    below the link's sequential resolution (VERDICT r4 weak #1)."""
+    invocation, so drift over the run hits every cell equally and
+    cross-cell deltas are epoch-paired and fair."""
     import time as _time
 
-    import jax
     import jax.numpy as jnp
     import numpy as np
 
     from auditory_tpu.pipeline.online import MultiStreamOnline
-    from auditory_tpu.utils.canary import classify_link, d2h_canary, \
-        make_canary_buffer
 
     sr = SERVING_SR
     chunk_n = sr // 10
@@ -307,12 +285,8 @@ def _capacity_table(args) -> None:
         runs[(s, tname, d)] = dict(ms=ms, epoch_t=[], epoch_n=[])
         print(json.dumps({"warmed": [s, tname, d]}), flush=True)
 
-    canary_buf = make_canary_buffer(jnp, jax.device_put)
-    d2h_canary(canary_buf)
-    canaries = []
     ci = 0
     for _ in range(args.epochs):
-        canaries.append(d2h_canary(canary_buf))
         for s, tname, td, d in scenarios:
             r = runs[(s, tname, d)]
             ms = r["ms"]
@@ -361,32 +335,15 @@ def _capacity_table(args) -> None:
                 "median_delta_pct": round(float(np.median(deltas)) * 100, 1),
                 "wins": f"{wins}/{len(deltas)}",
             }), flush=True)
-    cs = np.asarray(canaries)
-    print(json.dumps({
-        "canary_p50_ms": round(float(np.median(cs)) * 1e3, 2),
-        "canary_max_ms": round(float(cs.max()) * 1e3, 2),
-        "regime": classify_link(list(cs)),
-    }), flush=True)
 
 
 def _report_overload(args, runs, scenarios):
     for k, d in scenarios:
         r = runs[(k, d)]
-        ms2, lat2, canary2, n_seg2 = r["ms"], r["lat"], r["canary"], r["n_seg"]
+        ms2, lat2, n_seg2 = r["ms"], r["lat"], r["n_seg"]
         dropped = sum(
             ms2.dropped_segments(s) for s in range(args.streams)
         ) - r["dropped0"]
-        lat_a, can_a = np.asarray(lat2), np.asarray(canary2)
-        # attribution: mean canary inside the slowest poll decile vs
-        # overall median -- >> 1 means the tail rides relay stalls
-        tail = lat_a >= np.quantile(lat_a, 0.9)
-        can_med = float(np.median(can_a)) or 1e-9
-        tail_ratio = float(can_a[tail].mean()) / can_med
-        corr = (
-            float(np.corrcoef(lat_a, can_a)[0, 1])
-            if len(lat_a) > 2 and lat_a.std() > 0 and can_a.std() > 0
-            else 0.0
-        )
         print(json.dumps({
             "metric": "multistream_overload_4x",
             "streams": args.streams,
@@ -402,10 +359,6 @@ def _report_overload(args, runs, scenarios):
             "drop_frac": round(
                 dropped / max(dropped + n_seg2, 1), 3
             ),
-            "canary_p50_ms": round(can_med * 1e3, 2),
-            "canary_p99_ms": round(float(np.quantile(can_a, 0.99)) * 1e3, 2),
-            "canary_tail_ratio": round(tail_ratio, 2),
-            "poll_canary_corr": round(corr, 3),
         }))
         if args.profile_poll and ms2.poll_phases:
             # drop the warmup polls (first poll's dispatch includes the

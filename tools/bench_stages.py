@@ -2,10 +2,10 @@
 backend: times the same batch with progressively larger output selections so
 XLA's dead-code elimination isolates each stage's marginal cost.
 
-    tools/tpu_run.sh /tmp/stages.log tools/bench_stages.py [--batch N] [--seconds S]
+    PYTHONPATH=. python tools/bench_stages.py [--batch N] [--seconds S]
 
 Prints one JSON line per variant:
-  mel_only       frontend conv + mel matmul (the floor)
+  mel_only       spectrum frontend + mel matmul (the floor)
   mel_mfcc       + DCT, energy, delta/delta-delta operators
   mel_gabor      + gabor conv, on/off split (no MFCC)
   features       the bench.py default output set
@@ -29,7 +29,7 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rate", type=int, default=16000,
                     help="sample rate; 44100 profiles the 1102-pt-window "
-                    "geometry (VERDICT r2 #8)")
+                    "geometry")
     args = ap.parse_args()
 
     import jax

@@ -49,7 +49,6 @@ MODULES = [
     "auditory_tpu.utils.viz",
     "auditory_tpu.utils.profiling",
     "auditory_tpu.utils.cache",
-    "auditory_tpu.ops.framefft",
 ]
 
 HEADER = """# API reference
